@@ -6,9 +6,9 @@ its own internal pyramid, ref: src/Farneback_PyCL.py:468-487), FILTER_OPT=0.48.
 
     python3 examples/Farneback_Fs0_0.py [--im1 a.tif --im2 b.tif --out flow.mat]
 """
-import _example_lib  # noqa: F401  (must be first: backend env setup)
+import _example_lib  # noqa: F401  (first: puts the repository on sys.path)
 
-from opticalflow_ri_tpu import FarnebackAdapter
+from opticalflow_ri import FarnebackAdapter
 
 if __name__ == "__main__":
     _example_lib.run_example(

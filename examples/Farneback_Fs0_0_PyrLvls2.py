@@ -5,9 +5,9 @@ driver's 2 levels stack on Farnebäck's own internal pyramid.
 
     python3 examples/Farneback_Fs0_0_PyrLvls2.py [--im1 a.tif --im2 b.tif --out flow.mat]
 """
-import _example_lib  # noqa: F401  (must be first: backend env setup)
+import _example_lib  # noqa: F401  (first: puts the repository on sys.path)
 
-from opticalflow_ri_tpu import FarnebackAdapter
+from opticalflow_ri import FarnebackAdapter
 
 if __name__ == "__main__":
     _example_lib.run_example(

@@ -6,9 +6,9 @@ for the refiner's images, Liu-Shen alpha=10 — the FB-combination value.
 
     python3 examples/LiuSE_Farneback_Fs0_0_PyrLvls2.py [--im1 a.tif --im2 b.tif --out flow.mat]
 """
-import _example_lib  # noqa: F401  (must be first: backend env setup)
+import _example_lib  # noqa: F401  (first: puts the repository on sys.path)
 
-from opticalflow_ri_tpu import FarnebackAdapter, LiuShenOpticalFlowAlgoAdapter
+from opticalflow_ri import FarnebackAdapter, LiuShenOpticalFlowAlgoAdapter
 
 if __name__ == "__main__":
     _example_lib.run_example(

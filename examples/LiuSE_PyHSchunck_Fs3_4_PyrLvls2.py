@@ -8,9 +8,9 @@ HS-combination value (ref: examples/LiuSE_PyHSchunck_Fs3_4_PyrLvls2.py:135).
 
     python3 examples/LiuSE_PyHSchunck_Fs3_4_PyrLvls2.py [--im1 a.tif --im2 b.tif --out flow.mat]
 """
-import _example_lib  # noqa: F401  (must be first: backend env setup)
+import _example_lib  # noqa: F401  (first: puts the repository on sys.path)
 
-from opticalflow_ri_tpu import HSOpticalFlowAlgoAdapter, LiuShenOpticalFlowAlgoAdapter
+from opticalflow_ri import HSOpticalFlowAlgoAdapter, LiuShenOpticalFlowAlgoAdapter
 
 if __name__ == "__main__":
     _example_lib.run_example(

@@ -6,9 +6,9 @@ of the h-parameter calibration table (ref: examples/PyHSchunck_Fs3_4.py:63-123).
 
     python3 examples/PyHSchunck_Fs3_4.py [--im1 a.tif --im2 b.tif --out flow.mat]
 """
-import _example_lib  # noqa: F401  (must be first: backend env setup)
+import _example_lib  # noqa: F401  (first: puts the repository on sys.path)
 
-from opticalflow_ri_tpu import HSOpticalFlowAlgoAdapter
+from opticalflow_ri import HSOpticalFlowAlgoAdapter
 
 if __name__ == "__main__":
     _example_lib.run_example(

@@ -9,9 +9,9 @@ END of the list, so the coarsest level consumes the last entry
 
     python3 examples/PyHSchunck_Fs3_4_PyrLvls2.py [--im1 a.tif --im2 b.tif --out flow.mat]
 """
-import _example_lib  # noqa: F401  (must be first: backend env setup)
+import _example_lib  # noqa: F401  (first: puts the repository on sys.path)
 
-from opticalflow_ri_tpu import HSOpticalFlowAlgoAdapter
+from opticalflow_ri import HSOpticalFlowAlgoAdapter
 
 if __name__ == "__main__":
     _example_lib.run_example(

@@ -6,9 +6,9 @@ disabled (ref: src/denseLucasKanade_PyCL.py:177-182).
 
     python3 examples/denseLK_Fs2_0_PyrLvls2.py [--im1 a.tif --im2 b.tif --out flow.mat]
 """
-import _example_lib  # noqa: F401  (must be first: backend env setup)
+import _example_lib  # noqa: F401  (first: puts the repository on sys.path)
 
-from opticalflow_ri_tpu import DenseLucasKanadeAdapter
+from opticalflow_ri import DenseLucasKanadeAdapter
 
 if __name__ == "__main__":
     _example_lib.run_example(

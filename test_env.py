@@ -3,7 +3,7 @@
 ``test_env.py`` (prints the numerics stack versions; accelerator failure is
 tolerated).  Run directly: ``python3 test_env.py``."""
 
-from opticalflow_ri_tpu.utils.envcheck import main
+from opticalflow_ri.utils.envcheck import main
 
 if __name__ == "__main__":
     main()

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from opticalflow_ri_tpu.parallel.mesh import make_mesh
-from opticalflow_ri_tpu.parallel.auto import auto_sharded_pipeline
-from opticalflow_ri_tpu.compile import compiled_pipeline
+from opticalflow_ri.parallel.mesh import make_mesh
+from opticalflow_ri.parallel.auto import auto_sharded_pipeline
+from opticalflow_ri.compile import compiled_pipeline
 from conftest import aee
 
 needs_devices = pytest.mark.skipif(

@@ -5,8 +5,8 @@ import os
 
 import numpy as np
 
-from opticalflow_ri_tpu.harness.batch_runner import FlowBatchRunner
-from opticalflow_ri_tpu.utils.synthetic import particle_image_pair
+from opticalflow_ri.harness.batch_runner import FlowBatchRunner
+from opticalflow_ri.utils.synthetic import particle_image_pair
 
 
 def _make_dataset(tmp_path, n=5, shape=(48, 48)):

@@ -21,7 +21,7 @@ def _batch_mesh(n):
 
 
 def _stack(n, shape=(48, 64)):
-    from opticalflow_ri_tpu.utils.synthetic import particle_image_pair
+    from opticalflow_ri.utils.synthetic import particle_image_pair
 
     im1s, im2s = [], []
     for i in range(n):
@@ -34,10 +34,10 @@ def _stack(n, shape=(48, 64)):
 
 @needs_devices
 def test_batch_sharded_scan_matches_single_device_stream():
-    from opticalflow_ri_tpu.parallel.batch_stream import (
+    from opticalflow_ri.parallel.batch_stream import (
         batch_sharded_scan, batch_sharding,
     )
-    from opticalflow_ri_tpu.compile import scan_pipeline
+    from opticalflow_ri.compile import scan_pipeline
 
     mesh = _batch_mesh(8)
     im1s, im2s = _stack(8)
@@ -53,8 +53,8 @@ def test_batch_sharded_scan_matches_single_device_stream():
 def test_batch_sharded_scan_one_way_shortcut():
     """A 1-way batch axis short-circuits to the plain scan_pipeline (nothing
     to decompose; the single-device construct is the A/B baseline)."""
-    from opticalflow_ri_tpu.parallel.batch_stream import batch_sharded_scan
-    from opticalflow_ri_tpu.compile import scan_pipeline
+    from opticalflow_ri.parallel.batch_stream import batch_sharded_scan
+    from opticalflow_ri.compile import scan_pipeline
 
     mesh1 = Mesh(np.array(jax.devices()[:1]).reshape(1, 1, 1),
                  ("batch", "y", "x"))
@@ -66,8 +66,8 @@ def test_batch_runner_with_mesh(tmp_path):
     """FlowBatchRunner drives a campaign across the mesh batch axis and
     produces the same flows as the single-device runner."""
     from PIL import Image
-    from opticalflow_ri_tpu.harness.batch_runner import FlowBatchRunner
-    from opticalflow_ri_tpu.utils.synthetic import particle_image_pair
+    from opticalflow_ri.harness.batch_runner import FlowBatchRunner
+    from opticalflow_ri.utils.synthetic import particle_image_pair
 
     pairs = []
     for i in range(6):
@@ -101,7 +101,7 @@ def test_batch_runner_with_mesh(tmp_path):
 
 @needs_devices
 def test_batch_runner_mesh_validation():
-    from opticalflow_ri_tpu.harness.batch_runner import FlowBatchRunner
+    from opticalflow_ri.harness.batch_runner import FlowBatchRunner
 
     mesh = _batch_mesh(4)
     with pytest.raises(ValueError):
@@ -115,8 +115,8 @@ def test_batch_runner_mesh_validation():
 @needs_devices
 def test_batched_gspmd_route_warns():
     """The vmapped GSPMD batch route (no kernels) now announces its cliff."""
-    from opticalflow_ri_tpu.parallel.auto import auto_sharded_pipeline
-    from opticalflow_ri_tpu.parallel.mesh import make_mesh
+    from opticalflow_ri.parallel.auto import auto_sharded_pipeline
+    from opticalflow_ri.parallel.mesh import make_mesh
 
     with pytest.warns(UserWarning, match="batch_sharded_scan"):
         auto_sharded_pipeline("HS_Fs0_0", make_mesh(8), batch=True)

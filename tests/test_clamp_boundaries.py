@@ -21,8 +21,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from opticalflow_ri_tpu.models.farneback import poly_expansion, update_matrices
-from opticalflow_ri_tpu.models.lucas_kanade import lk_dense_solve
+from opticalflow_ri.models.farneback import poly_expansion, update_matrices
+from opticalflow_ri.models.lucas_kanade import lk_dense_solve
 
 
 def _band_limited(shape, shift=(0.0, 0.0), seed=0):

@@ -4,10 +4,10 @@ compositions match the oracle driver."""
 import numpy as np
 import pytest
 
-from opticalflow_ri_tpu.configs import CONFIGS, EXAMPLE_CONFIG_NAMES, run_config, hs_alphas
-from opticalflow_ri_tpu.oracle.pyramid import pyramidal_optical_flow as oracle_pyr
-from opticalflow_ri_tpu.oracle.lucas_kanade import OracleDenseLKAdapter
-from opticalflow_ri_tpu.oracle.farneback import OracleFarnebackAdapter
+from opticalflow_ri.configs import CONFIGS, EXAMPLE_CONFIG_NAMES, run_config, hs_alphas
+from opticalflow_ri.oracle.pyramid import pyramidal_optical_flow as oracle_pyr
+from opticalflow_ri.oracle.lucas_kanade import OracleDenseLKAdapter
+from opticalflow_ri.oracle.farneback import OracleFarnebackAdapter
 from conftest import aee
 
 
@@ -62,7 +62,7 @@ def test_fb_config_matches_oracle_driver(piv_pair_small):
 def test_liuse_main_configs_match_oracle(name, sigma, piv_pair_small):
     """Benchmark quirk: LiuShen(0.1) REPLACES the main adapter
     (ref: benchmark_of_methods.py:159-163, :211-215, :265-269)."""
-    from opticalflow_ri_tpu.oracle.liu_shen import OracleLiuShenAdapter
+    from opticalflow_ri.oracle.liu_shen import OracleLiuShenAdapter
 
     im1, im2, _, _ = piv_pair_small
     u, v = run_config(name, im1, im2)
@@ -74,7 +74,7 @@ def test_liuse_main_configs_match_oracle(name, sigma, piv_pair_small):
 def test_batched_pipeline_all_solvers(piv_pair_small):
     """vmapped whole-config pipelines work for every solver family."""
     import jax.numpy as jnp
-    from opticalflow_ri_tpu.compile import batched_pipeline
+    from opticalflow_ri.compile import batched_pipeline
 
     im1, im2, _, _ = piv_pair_small
     b1 = jnp.stack([jnp.asarray(im1)] * 2)
@@ -88,7 +88,7 @@ def test_batched_pipeline_all_solvers(piv_pair_small):
 
 def test_scan_pipeline_matches_single(piv_pair_small):
     import jax.numpy as jnp
-    from opticalflow_ri_tpu.compile import scan_pipeline, compiled_pipeline
+    from opticalflow_ri.compile import scan_pipeline, compiled_pipeline
 
     im1, im2, _, _ = piv_pair_small
     K = 3

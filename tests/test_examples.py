@@ -9,7 +9,7 @@ import sys
 import numpy as np
 import pytest
 
-from opticalflow_ri_tpu.configs import CONFIGS, EXAMPLE_CONFIG_NAMES
+from opticalflow_ri.configs import CONFIGS, EXAMPLE_CONFIG_NAMES
 
 EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "examples")
 
@@ -40,7 +40,7 @@ def test_example_script_matches_registry(name, tmp_path, piv_pair_small):
     from PIL import Image
     from scipy.io import loadmat
 
-    from opticalflow_ri_tpu.configs import run_config
+    from opticalflow_ri.configs import run_config
 
     im1, im2, _, _ = piv_pair_small
     p1 = tmp_path / "a.tif"
@@ -49,7 +49,7 @@ def test_example_script_matches_registry(name, tmp_path, piv_pair_small):
     Image.fromarray(np.asarray(im2).astype(np.uint8)).save(p2)
     out = tmp_path / "flow.mat"
 
-    env = dict(os.environ, JAX_PLATFORMS="cpu", OFRI_DISABLE_PALLAS="1")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run(
         [sys.executable, os.path.join(EXAMPLES_DIR, f"{name}.py"),
          "--im1", str(p1), "--im2", str(p2), "--out", str(out)],
@@ -72,7 +72,7 @@ def test_example_script_matches_registry(name, tmp_path, piv_pair_small):
 
 def test_script_cli_errors_cleanly():
     script = os.path.join(EXAMPLES_DIR, f"{EXAMPLE_CONFIG_NAMES[0]}.py")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", OFRI_DISABLE_PALLAS="1")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run(
         [sys.executable, script, "--no-such-flag"],
         capture_output=True, text=True, timeout=120, env=env,

@@ -1,13 +1,13 @@
-"""Farneback parity: TPU single-program pipeline vs the oracle port."""
+"""Farneback parity: the single-program XLA pipeline vs the oracle port."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from opticalflow_ri_tpu.models.farneback import (
+from opticalflow_ri.models.farneback import (
     farneback_solve, poly_expansion, update_matrices, update_flow,
     gaussian_blur, FarnebackAdapter,
 )
-from opticalflow_ri_tpu.oracle import farneback as ofb
+from opticalflow_ri.oracle import farneback as ofb
 from conftest import aee
 
 
@@ -126,7 +126,7 @@ def test_farneback_poly5(piv_pair_small):
 
 
 def test_farneback_odd_shapes():
-    from opticalflow_ri_tpu.utils.synthetic import particle_image_pair
+    from opticalflow_ri.utils.synthetic import particle_image_pair
 
     im1, im2, _, _ = particle_image_pair(shape=(47, 61), seed=6, max_disp=1.5)
     z = np.zeros_like(im1)

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from opticalflow_ri_tpu.ops.gaussian import prepare_gaussian_kernel, gaussian_filter_px
-from opticalflow_ri_tpu.oracle.gaussian import gaussian_filter_px as oracle_filter
+from opticalflow_ri.ops.gaussian import prepare_gaussian_kernel, gaussian_filter_px
+from opticalflow_ri.oracle.gaussian import gaussian_filter_px as oracle_filter
 
 
 def test_kernel_weights_truncated_sigma():
@@ -35,7 +35,7 @@ def test_filter_matches_oracle():
 
 
 def test_bit_exact_kernels():
-    from opticalflow_ri_tpu.ops.kernels_bitexact import get_gaussian_kernel_bit_exact
+    from opticalflow_ri.ops.kernels_bitexact import get_gaussian_kernel_bit_exact
 
     # binomial fast paths
     _, k3 = get_gaussian_kernel_bit_exact(3, 0.0)

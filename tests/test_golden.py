@@ -9,12 +9,12 @@ import os
 import numpy as np
 import pytest
 
-from opticalflow_ri_tpu.configs import run_config
-from opticalflow_ri_tpu.pyramid import generic_pyramidal_optical_flow
-from opticalflow_ri_tpu.models.horn_schunck import HSOpticalFlowAlgoAdapter
-from opticalflow_ri_tpu.models.liu_shen import LiuShenOpticalFlowAlgoAdapter
-from opticalflow_ri_tpu.models.lucas_kanade import DenseLucasKanadeAdapter
-from opticalflow_ri_tpu.models.farneback import FarnebackAdapter
+from opticalflow_ri.configs import run_config
+from opticalflow_ri.pyramid import generic_pyramidal_optical_flow
+from opticalflow_ri.models.horn_schunck import HSOpticalFlowAlgoAdapter
+from opticalflow_ri.models.liu_shen import LiuShenOpticalFlowAlgoAdapter
+from opticalflow_ri.models.lucas_kanade import DenseLucasKanadeAdapter
+from opticalflow_ri.models.farneback import FarnebackAdapter
 from conftest import aee
 
 _GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "synthetic96_flows.npz")

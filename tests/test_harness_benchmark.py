@@ -6,8 +6,8 @@ import os
 import numpy as np
 import scipy.io
 
-from opticalflow_ri_tpu.harness.benchmark import run_benchmark
-from opticalflow_ri_tpu.utils.synthetic import particle_image_pair
+from opticalflow_ri.harness.benchmark import run_benchmark
+from opticalflow_ri.utils.synthetic import particle_image_pair
 
 
 def test_run_benchmark_artifacts(tmp_path):

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from opticalflow_ri_tpu.models.horn_schunck import hs_solve, HSOpticalFlowAlgoAdapter
-from opticalflow_ri_tpu.oracle.horn_schunck import hs_solve as oracle_hs
+from opticalflow_ri.models.horn_schunck import hs_solve, HSOpticalFlowAlgoAdapter
+from opticalflow_ri.oracle.horn_schunck import hs_solve as oracle_hs
 from conftest import aee
 
 

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from opticalflow_ri_tpu.ops.kernels_simple import (
+from opticalflow_ri.ops.kernels_simple import (
     simple_gaussian_kernel, simple_gaussian_kernel_decimal,
 )
 

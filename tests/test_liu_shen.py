@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from opticalflow_ri_tpu.models.liu_shen import liu_shen_solve, LiuShenOpticalFlowAlgoAdapter
-from opticalflow_ri_tpu.oracle.liu_shen import liu_shen_solve as oracle_ls, OracleLiuShenAdapter
+from opticalflow_ri.models.liu_shen import liu_shen_solve, LiuShenOpticalFlowAlgoAdapter
+from opticalflow_ri.oracle.liu_shen import liu_shen_solve as oracle_ls, OracleLiuShenAdapter
 from conftest import aee
 
 

@@ -4,8 +4,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from opticalflow_ri_tpu.ops.warp import liu_shen_warp
-from opticalflow_ri_tpu.oracle.gaussian import gaussian_filter as oracle_gauss
+from opticalflow_ri.ops.warp import liu_shen_warp
+from opticalflow_ri.oracle.gaussian import gaussian_filter as oracle_gauss
 
 
 def _oracle_ls_warp(im1, u, v):
@@ -65,8 +65,8 @@ def test_ls_warp_duplicate_destinations_last_write_wins():
 
 def test_driver_accepts_ls_warp_mode(piv_pair_small):
     """biLinear=False end-to-end through the pyramid driver."""
-    from opticalflow_ri_tpu.pyramid import generic_pyramidal_optical_flow
-    from opticalflow_ri_tpu.models.horn_schunck import HSOpticalFlowAlgoAdapter
+    from opticalflow_ri.pyramid import generic_pyramidal_optical_flow
+    from opticalflow_ri.models.horn_schunck import HSOpticalFlowAlgoAdapter
 
     im1, im2, _, _ = piv_pair_small
     ad = HSOpticalFlowAlgoAdapter([21.0, 45.0], 20, provideGenericPyramidalDefaults=False)

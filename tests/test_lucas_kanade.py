@@ -1,10 +1,10 @@
-"""Dense LK parity: TPU shift-plane implementation vs the CL-faithful oracle."""
+"""Dense LK parity: the shift-plane implementation vs the CL-faithful oracle."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from opticalflow_ri_tpu.models.lucas_kanade import lk_dense_solve, DenseLucasKanadeAdapter
-from opticalflow_ri_tpu.oracle.lucas_kanade import lk_dense, window_mask
+from opticalflow_ri.models.lucas_kanade import lk_dense_solve, DenseLucasKanadeAdapter
+from opticalflow_ri.oracle.lucas_kanade import lk_dense, window_mask
 
 
 def _compare(u, v, ou, ov, frac=0.99, tol=1e-2):
@@ -100,7 +100,7 @@ def test_adapter_protocol(piv_pair_small):
 def test_vorticity_enhancement_end_to_end(piv_pair_small):
     """enableVorticityEnhancement picks an asymmetric window from the mean
     curl (ref: denseLucasKanade_PyCL.py:75-92)."""
-    from opticalflow_ri_tpu.models.lucas_kanade import evaluate_vorticity_asym
+    from opticalflow_ri.models.lucas_kanade import evaluate_vorticity_asym
 
     im1, im2, _, _ = piv_pair_small
     h, w = im1.shape
@@ -123,7 +123,7 @@ def test_vorticity_enhancement_end_to_end(piv_pair_small):
 
 def test_lk_odd_shapes():
     """Non-tile-aligned and small images work (padding covers the window)."""
-    from opticalflow_ri_tpu.utils.synthetic import particle_image_pair
+    from opticalflow_ri.utils.synthetic import particle_image_pair
 
     for shape in ((45, 67), (33, 130)):
         im1, im2, _, _ = particle_image_pair(shape=shape, seed=5, max_disp=1.5)

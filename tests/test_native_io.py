@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from opticalflow_ri_tpu.utils import native
+from opticalflow_ri.utils import native
 
 
 pytestmark = pytest.mark.skipif(
@@ -46,7 +46,7 @@ def test_tiff_read_reference_image():
     p = "/root/reference/examples/testImages/Bits08/Ni06/parabolic01_0.tif"
     if not os.path.exists(p):
         pytest.skip("reference image unavailable")
-    from opticalflow_ri_tpu.utils.io import load_image
+    from opticalflow_ri.utils.io import load_image
 
     got = native.tiff_read(p)
     if got is None:

@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from opticalflow_ri_tpu.pyramid import generic_pyramidal_optical_flow
-from opticalflow_ri_tpu.models.horn_schunck import HSOpticalFlowAlgoAdapter
-from opticalflow_ri_tpu.models.liu_shen import LiuShenOpticalFlowAlgoAdapter
-from opticalflow_ri_tpu.oracle.pyramid import pyramidal_optical_flow as oracle_pyramid
-from opticalflow_ri_tpu.oracle.horn_schunck import OracleHSAdapter
-from opticalflow_ri_tpu.oracle.liu_shen import OracleLiuShenAdapter
+from opticalflow_ri.pyramid import generic_pyramidal_optical_flow
+from opticalflow_ri.models.horn_schunck import HSOpticalFlowAlgoAdapter
+from opticalflow_ri.models.liu_shen import LiuShenOpticalFlowAlgoAdapter
+from opticalflow_ri.oracle.pyramid import pyramidal_optical_flow as oracle_pyramid
+from opticalflow_ri.oracle.horn_schunck import OracleHSAdapter
+from opticalflow_ri.oracle.liu_shen import OracleLiuShenAdapter
 from conftest import aee
 
 

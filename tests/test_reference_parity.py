@@ -101,7 +101,7 @@ def _aee(u, v, ur, vr):
 
 def test_gaussian_filterpx_vs_reference(ref, crop_pair):
     """ref: src/gaussian_filter.py:92-94 (in-place; pass a copy)."""
-    from opticalflow_ri_tpu.ops.gaussian import gaussian_filter_px
+    from opticalflow_ri.ops.gaussian import gaussian_filter_px
 
     im1, _ = crop_pair
     expected = ref.gaussian.gaussian_filterPx(im1.copy(), 3.4, 3)
@@ -111,7 +111,7 @@ def test_gaussian_filterpx_vs_reference(ref, crop_pair):
 
 def test_horn_schunck_vs_reference(ref, crop_pair):
     """ref: src/HornSchunck.py:29-105 incl. the im1/im2 role swap."""
-    from opticalflow_ri_tpu.models.horn_schunck import HSOpticalFlowAlgoAdapter
+    from opticalflow_ri.models.horn_schunck import HSOpticalFlowAlgoAdapter
 
     im1, im2 = crop_pair
     U0 = np.zeros(im1.shape, np.float32)
@@ -127,7 +127,7 @@ def test_horn_schunck_vs_reference(ref, crop_pair):
 
 def test_liu_shen_vs_reference(ref, crop_pair):
     """ref: src/PhysicsBasedOpticalFlowLiuShen.py:33-45 (component swap)."""
-    from opticalflow_ri_tpu.models.liu_shen import LiuShenOpticalFlowAlgoAdapter
+    from opticalflow_ri.models.liu_shen import LiuShenOpticalFlowAlgoAdapter
 
     im1, im2 = crop_pair
     U0 = np.zeros(im1.shape, np.float32)
@@ -144,8 +144,8 @@ def test_liu_shen_vs_reference(ref, crop_pair):
 def test_pyramid_driver_vs_reference(ref, crop_pair):
     """Full 2-level pyramidal HS run through the real reference driver
     (ref: src/GenericPyramidalOpticalFlow.py:238-417)."""
-    from opticalflow_ri_tpu.models.horn_schunck import HSOpticalFlowAlgoAdapter
-    from opticalflow_ri_tpu.pyramid import generic_pyramidal_optical_flow
+    from opticalflow_ri.models.horn_schunck import HSOpticalFlowAlgoAdapter
+    from opticalflow_ri.pyramid import generic_pyramidal_optical_flow
 
     im1, im2 = crop_pair
     eu, ev = ref.pyr.genericPyramidalOpticalFlow(
@@ -164,7 +164,7 @@ def test_pyramid_driver_vs_reference(ref, crop_pair):
 def test_liuse_main_vs_reference(ref, crop_pair):
     """The benchmark's Liu-Shen-replaces-main composition through both
     drivers (ref: benchmark_of_methods.py:159-163)."""
-    from opticalflow_ri_tpu.configs import run_config
+    from opticalflow_ri.configs import run_config
 
     im1, im2 = crop_pair
     eu, ev = ref.pyr.genericPyramidalOpticalFlow(
@@ -189,7 +189,7 @@ def test_farneback_vs_opencv(levels, crop_pair):
     (ref: src/Farneback_PyCL.py:15-20); cv2.calcOpticalFlowFarneback is
     therefore executable ground truth. Measured AEE ~0.006 px (float-path
     and resize differences); bound at 0.02."""
-    from opticalflow_ri_tpu.models.farneback import farneback_solve
+    from opticalflow_ri.models.farneback import farneback_solve
 
     im1, im2 = crop_pair
     z = jnp.zeros(im1.shape, jnp.float32)
@@ -213,7 +213,7 @@ def test_dense_lk_vs_opencv(reference_images):
     points is ground truth away from borders (the CL variant clamps to edge
     where OpenCV rejects the point). Measured interior AEE ~7e-5; bound at
     1e-3."""
-    from opticalflow_ri_tpu.models.lucas_kanade import DenseLucasKanadeAdapter
+    from opticalflow_ri.models.lucas_kanade import DenseLucasKanadeAdapter
 
     im1, im2 = reference_images
     c1 = np.asarray(im1[:128, :128], np.float32)

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import PIL
 from PIL import Image
 
-from opticalflow_ri_tpu.ops.resize import pil_resize, spline_upsample
+from opticalflow_ri.ops.resize import pil_resize, spline_upsample
 
 
 def _rand(shape, seed=0):

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from opticalflow_ri_tpu.parallel import (
+from opticalflow_ri.parallel import (
     make_mesh, mesh_shape_for, hs_solve_sharded, liu_shen_solve_sharded,
     batched_hs_pipeline,
 )
-from opticalflow_ri_tpu.models.horn_schunck import hs_solve
-from opticalflow_ri_tpu.models.liu_shen import liu_shen_solve
+from opticalflow_ri.models.horn_schunck import hs_solve
+from opticalflow_ri.models.liu_shen import liu_shen_solve
 
 
 needs_devices = pytest.mark.skipif(
@@ -45,7 +45,7 @@ def test_hs_sharded_tblocked_matches_single_device(piv_pair_medium):
     """Temporal-blocked halo exchange (T iterations per ppermute round, T-deep
     mirror ring at global borders) == per-iteration exchange == unsharded,
     incl. a remainder outer step (50 % 8 != 0)."""
-    from opticalflow_ri_tpu.parallel.sharded import hs_solve_sharded_tblocked
+    from opticalflow_ri.parallel.sharded import hs_solve_sharded_tblocked
 
     im1, im2, _, _ = piv_pair_medium
     z = jnp.zeros(im1.shape, jnp.float32)
@@ -74,7 +74,7 @@ def test_liu_shen_sharded_matches_single_device(piv_pair_medium):
 
 @needs_devices
 def test_batched_pipeline_dp_plus_spatial(piv_pair_medium):
-    from opticalflow_ri_tpu.ops.gaussian import gaussian_filter_px
+    from opticalflow_ri.ops.gaussian import gaussian_filter_px
 
     im1, im2, _, _ = piv_pair_medium
     batch1 = np.stack([im1, im1 * 0.5])
@@ -97,8 +97,8 @@ def test_batched_pipeline_dp_plus_spatial(piv_pair_medium):
 @needs_devices
 def test_halo_exchange_boundary_rules():
     """exchange_halo under all 4 border modes == whole-array padding."""
-    from opticalflow_ri_tpu.parallel.halo import exchange_halo
-    from opticalflow_ri_tpu.ops.padding import pad2d
+    from opticalflow_ri.parallel.halo import exchange_halo
+    from opticalflow_ri.ops.padding import pad2d
     from jax.sharding import PartitionSpec as P
     from jax import shard_map
     from functools import partial

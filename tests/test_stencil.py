@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.ndimage import convolve as filter2
 
-from opticalflow_ri_tpu.ops.stencil import (
+from opticalflow_ri.ops.stencil import (
     correlate3x3,
     hs_derivatives,
     separable_correlate,
@@ -26,7 +26,7 @@ def test_correlate3x3_matches_ndimage_modes():
 
 
 def test_hs_derivatives_match_reference_formulas():
-    from opticalflow_ri_tpu.oracle.horn_schunck import derivatives
+    from opticalflow_ri.oracle.horn_schunck import derivatives
 
     f0 = _rand((21, 19), 2)
     f1 = _rand((21, 19), 3)

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from opticalflow_ri_tpu.ops.warp import bilinear_warp_rounded, symmetric_warp_pair
-from opticalflow_ri_tpu.oracle.pyramid import bilinear_warp_rounded as oracle_warp
+from opticalflow_ri.ops.warp import bilinear_warp_rounded, symmetric_warp_pair
+from opticalflow_ri.oracle.pyramid import bilinear_warp_rounded as oracle_warp
 
 
 def test_rounded_bilinear_warp_matches_oracle():
@@ -21,28 +21,6 @@ def test_rounded_bilinear_warp_matches_oracle():
     got = np.asarray(bilinear_warp_rounded(jnp.asarray(img), jnp.asarray(ys + dy), jnp.asarray(xs + dx)))
     want = oracle_warp(img, ys + dy, xs + dx)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
-
-
-def test_symmetric_pair_warp_dispatch_routes_sparse(monkeypatch):
-    """With the backend policy on, the driver warp must route through the
-    registered sparse tent kernel (never silently fall back to XLA)."""
-    import opticalflow_ri_tpu.ops.pallas as pk
-    import opticalflow_ri_tpu.ops.pallas.warp_tent as wt
-    from opticalflow_ri_tpu.ops import warp as wmod
-
-    called = {}
-
-    def spy(im1, im2, dy1, dx1, dy2, dx2, max_shift=8, **kw):
-        called["sparse"] = kw.get("sparse")
-        return im1, im2
-
-    monkeypatch.setattr(pk, "pallas_default_on", lambda: True)
-    monkeypatch.setattr(wt, "warp_pair_tent_pallas", spy)
-    im = jnp.zeros((64, 128), jnp.float32)
-    z = jnp.zeros((64, 128), jnp.float32)
-    wmod.symmetric_warp_pair(im, im, z, z, max_shift=8)
-    assert called.get("sparse") is True, (
-        "driver warp did not route to the sparse tent kernel")
 
 
 def test_symmetric_pair_warp():
